@@ -9,7 +9,7 @@ import sys
 # runnable from anywhere: python examples/load_data_demo.py
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lidar_slam_tpu.utils import io
+from lidar_slam.utils import io
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser()

@@ -35,15 +35,15 @@ if __name__ == "__main__":
                              "pose a revisit of the previous lap)")
     args = parser.parse_args()
 
-    from lidar_slam_tpu.utils.profiling import devices_or_die
-    devices_or_die()
+    from lidar_slam.utils.runtime import report_devices
+    report_devices()
     import dataclasses
 
     import numpy as np
 
-    from lidar_slam_tpu.config import IcpConfig, LidarConfig, SlamConfig
-    from lidar_slam_tpu.models import slam
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.config import IcpConfig, LidarConfig, SlamConfig
+    from lidar_slam.models import slam
+    from lidar_slam.utils import io
 
     data = io.synthetic_revisit_dataset(n_steps=args.steps,
                                         n_rays=args.rays,

@@ -22,16 +22,16 @@ if __name__ == "__main__":
                              "error (1.0 = unbiased)")
     args = parser.parse_args()
 
-    from lidar_slam_tpu.utils.profiling import devices_or_die
-    devices_or_die()
+    from lidar_slam.utils.runtime import report_devices
+    report_devices()
     import jax.numpy as jnp
     import numpy as np
 
-    from lidar_slam_tpu.config import LidarConfig, MapConfig
-    from lidar_slam_tpu.models import occupancy, odometry
-    from lidar_slam_tpu.models import particle_filter as pf
-    from lidar_slam_tpu.ops import scan as scan_ops
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.config import LidarConfig, MapConfig
+    from lidar_slam.models import occupancy, odometry
+    from lidar_slam.models import particle_filter as pf
+    from lidar_slam.ops import scan as scan_ops
+    from lidar_slam.utils import io
 
     map_cfg = MapConfig(resolution=0.1, world_max_x=15, world_min_x=-15,
                         world_max_y=15, world_min_y=-15)

@@ -1,4 +1,4 @@
-"""CLI driver: the reference's exact flag surface on the TPU-native engine.
+"""CLI driver: the reference's exact flag surface on the JAX engine.
 
 Same flags, defaults, output paths, and stage banners as the reference
 driver (reference: main.py:14-247, README.md:5-55):
@@ -131,22 +131,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     # persistent compile cache: repeat CLI runs at the same shapes skip the
-    # multi-minute XLA compile (bench.py uses the same cache directory)
-    import jax
-    try:
-        base = os.path.dirname(os.path.abspath(__file__))
-    except NameError:  # exec'd without __file__ (tests drive main via -c)
-        base = os.getcwd()
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(base, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    from lidar_slam_tpu.utils.profiling import devices_or_die
-    devices_or_die()
+    # XLA compile
+    from lidar_slam.utils.runtime import report_devices, use_compile_cache
+    use_compile_cache()
+    report_devices()
 
-    from lidar_slam_tpu import sensors
-    from lidar_slam_tpu.config import MapConfig, SlamConfig
-    from lidar_slam_tpu.models import slam
-    from lidar_slam_tpu.utils import io
+    from lidar_slam import sensors
+    from lidar_slam.config import MapConfig, SlamConfig
+    from lidar_slam.models import slam
+    from lidar_slam.utils import io
 
     dataset_num = args.dataset
 
@@ -191,7 +184,7 @@ def main(argv=None):
     sensors.synchronize_sensors(encoder, imu, lidar, base_sensor_index=0)
     print("Done!\n\n")
 
-    banner("Running the TPU SLAM pipeline...")
+    banner("Running the SLAM pipeline...")
     import dataclasses
     cfg = SlamConfig(map=MapConfig.from_cli(args.res, args.width, args.height))
     if (args.loop_proposer != "fixed" or args.robust_loss != "none"
@@ -231,13 +224,13 @@ def main(argv=None):
         io.save_numpy(result.logodds, args.save_logodds)
         print(f"log-odds grid saved at {args.save_logodds}")
     if args.export_ros_map:
-        from lidar_slam_tpu.utils import export
+        from lidar_slam.utils import export
         import numpy as np
         pgm, yml = export.save_map_ros(np.asarray(result.logodds), cfg.map,
                                        args.export_ros_map)
         print(f"ROS map_server map saved at {pgm} + {yml}")
     if args.export_tum:
-        from lidar_slam_tpu.utils import export
+        from lidar_slam.utils import export
         import numpy as np
         final = result.poses_optimized
         if final is None:
@@ -278,9 +271,9 @@ def _save_stage_artifacts(io, result, out, dataset_num):
 
 def _generate_maps(args, cfg, result, lidar, encoder, kinect,
                    logodds_map_path, texture_map_path, dataset_num):
-    from lidar_slam_tpu import sensors
-    from lidar_slam_tpu.models import texture
-    from lidar_slam_tpu.models.occupancy import OccupancyGridMap
+    from lidar_slam import sensors
+    from lidar_slam.models import texture
+    from lidar_slam.models.occupancy import OccupancyGridMap
 
     banner("Generating occupancy map...")
     ogm = OccupancyGridMap(cfg=cfg.map, range_max=float(lidar.range_max))

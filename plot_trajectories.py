@@ -7,8 +7,8 @@ kept as shorter aliases.
 
 import argparse
 
-from lidar_slam_tpu.utils import io
-from lidar_slam_tpu.utils.plotting import plot_trajectories
+from lidar_slam.utils import io
+from lidar_slam.utils.plotting import plot_trajectories
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description="Plot multiple trajectories")

@@ -10,12 +10,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from lidar_slam_tpu.config import PoseGraphConfig
-    from lidar_slam_tpu.models import pose_graph
-    from lidar_slam_tpu.utils import se2
+    from lidar_slam.config import PoseGraphConfig
+    from lidar_slam.models import pose_graph
+    from lidar_slam.utils import se2
 
-    from lidar_slam_tpu.utils.profiling import devices_or_die
-    print(f"jax {jax.__version__}, devices: {devices_or_die()}")
+    from lidar_slam.utils.runtime import report_devices
+    print(f"jax {jax.__version__}, devices: {report_devices()}")
 
     # two poses, a prior at the origin, one between factor of (1, 0, 90deg)
     meas = se2.T_from_pose(jnp.asarray([[1.0, 0.0, np.pi / 2]]))

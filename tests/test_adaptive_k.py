@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.config import MapConfig
-from lidar_slam_tpu.models import occupancy
+from lidar_slam.config import MapConfig
+from lidar_slam.models import occupancy
 
 
 def test_adaptive_k_exactness():

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.ops.bresenham import bresenham_cells, bresenham_fixed
+from lidar_slam.ops.bresenham import bresenham_cells, bresenham_fixed
 
 
 # Golden conformance vectors for the ray caster

@@ -15,7 +15,7 @@ when no cell saturates, small tolerance at saturated cells.
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.ops import clamp_affine as ca
+from lidar_slam.ops import clamp_affine as ca
 
 CLIP = 20.0
 

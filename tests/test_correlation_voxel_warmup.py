@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.ops import correlation, voxel
-from lidar_slam_tpu.models import warmup
+from lidar_slam.ops import correlation, voxel
+from lidar_slam.models import warmup
 
 REF = "/root/reference"
 
@@ -146,7 +146,7 @@ def test_warmup_downsample_trigger():
 
 def test_chunked_nn_matches_plain():
     import jax.numpy as jnp
-    from lidar_slam_tpu.ops.nn import nearest_neighbors, nearest_neighbors_chunked
+    from lidar_slam.ops.nn import nearest_neighbors, nearest_neighbors_chunked
     rng = np.random.default_rng(5)
     src = jnp.asarray(rng.normal(size=(2, 500, 3)))
     tgt = jnp.asarray(rng.normal(size=(2, 300, 3)))
@@ -163,7 +163,7 @@ def test_warmup_large_cloud_memory_guard(monkeypatch):
     src = rng.normal(0, 0.1, (3000, 3))
     tgt = src @ np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1.0]]).T + 0.1
     # pretend the memory budget is tiny so the guard must engage
-    import lidar_slam_tpu.models.warmup as w
+    import lidar_slam.models.warmup as w
     T, err, errs = w.best_icp_alignment(src, tgt, n_seeds=4, seed_batch=4,
                                         downsample_above=10**9)
     assert np.isfinite(err)
@@ -173,7 +173,7 @@ def test_export_ply_roundtrip(tmp_path):
     """PLY export (the Open3D-visualization analog, reference
     code/icp_warm_up/utils.py:33-50) writes a parseable file whose
     vertices round-trip the input clouds."""
-    from lidar_slam_tpu.models.warmup import export_ply
+    from lidar_slam.models.warmup import export_ply
 
     rng = np.random.default_rng(0)
     a = rng.normal(size=(7, 3))
@@ -191,7 +191,7 @@ def test_export_ply_roundtrip(tmp_path):
 def test_warmup_synthetic_clouds_align():
     # the --synthetic CLI path: targets are rigid transforms of the model,
     # so the seeded sweep must drive the normalized error to ~0
-    from lidar_slam_tpu.models import warmup
+    from lidar_slam.models import warmup
 
     model = warmup.synthetic_model(n_points=600, seed=3)
     target = warmup.synthetic_pc(model, idx=0, seed=3)
@@ -203,7 +203,7 @@ def test_view_interactive_falls_back_without_open3d():
     """view_interactive (the reference's o3d window analog,
     code/icp_warm_up/utils.py:33-50) must return False — never raise —
     when open3d is absent (this image) so callers route to export_ply."""
-    from lidar_slam_tpu.models import warmup
+    from lidar_slam.models import warmup
 
     clouds = [np.zeros((4, 3), np.float32), np.ones((4, 3), np.float32)]
     assert warmup.view_interactive(clouds) in (False,)  # no open3d here

@@ -32,7 +32,7 @@ def _write_dataset(data_dir, n_steps=40, n_rays=181, seed=7,
     sensor-major, transposed to time-major on load). dataset_num=21
     uses the 21-shaped generator (different extents, range_max=60)."""
     sys.path.insert(0, REPO)
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.utils import io
 
     kw = {} if n_rgb is None else {"n_rgb": n_rgb}
     if dataset_num == 21:

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.ops import icp as icp_ops
-from lidar_slam_tpu.utils import se2
+from lidar_slam.ops import icp as icp_ops
+from lidar_slam.utils import se2
 
 
 def test_icp_all_source_points_masked():
@@ -37,7 +37,7 @@ def test_se2_log_zero_rotation():
 
 
 def test_pose_graph_without_loops():
-    from lidar_slam_tpu.models import pose_graph
+    from lidar_slam.models import pose_graph
     rng = np.random.default_rng(1)
     rel = se2.T_from_pose(jnp.asarray(rng.normal(0, 0.05, (10, 3))))
     g = pose_graph.make_graph(rel)
@@ -52,8 +52,8 @@ def test_pose_graph_without_loops():
 
 
 def test_occupancy_single_scan_single_ray():
-    from lidar_slam_tpu.config import MapConfig
-    from lidar_slam_tpu.models import occupancy
+    from lidar_slam.config import MapConfig
+    from lidar_slam.models import occupancy
     cfg = MapConfig(resolution=0.5, world_max_x=3, world_min_x=-3,
                     world_max_y=3, world_min_y=-3)
     K = occupancy.max_ray_cells(cfg, 4.0)
@@ -67,7 +67,7 @@ def test_occupancy_single_scan_single_ray():
 
 
 def test_bresenham_extreme_coordinates():
-    from lidar_slam_tpu.ops.bresenham import bresenham_cells
+    from lidar_slam.ops.bresenham import bresenham_cells
     # the documented int32 domain: rays up to 46340 cells along the major
     # axis (k*dy stays below 2^31)
     cells = np.asarray(bresenham_cells(-20000, -20000, 20000, 19999))

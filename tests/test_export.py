@@ -1,6 +1,6 @@
 """Interop exports: ROS map_server PGM/YAML and TUM trajectories.
 
-Round-trip and orientation tests for lidar_slam_tpu/utils/export.py, plus
+Round-trip and orientation tests for lidar_slam/utils/export.py, plus
 one CLI pass exercising --export_ros_map / --export_tum end to end.
 """
 
@@ -11,9 +11,9 @@ import sys
 import numpy as np
 import pytest
 
-from lidar_slam_tpu.config import MapConfig
-from lidar_slam_tpu.models import occupancy
-from lidar_slam_tpu.utils import export
+from lidar_slam.config import MapConfig
+from lidar_slam.models import occupancy
+from lidar_slam.utils import export
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

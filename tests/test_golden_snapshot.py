@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from lidar_slam_tpu.config import MapConfig, PoseGraphConfig, SlamConfig
-from lidar_slam_tpu.models import slam
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import MapConfig, PoseGraphConfig, SlamConfig
+from lidar_slam.models import slam
+from lidar_slam.utils import io
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "pipeline_seed2024.npz")

@@ -2,9 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.ops import icp as icp_ops
-from lidar_slam_tpu.ops.kabsch import kabsch
-from lidar_slam_tpu.ops.nn import nearest_neighbors
+from lidar_slam.ops import icp as icp_ops
+from lidar_slam.ops.kabsch import kabsch
+from lidar_slam.ops.nn import nearest_neighbors
 
 
 def _rot(yaw):
@@ -212,7 +212,7 @@ def test_icp_masked_equals_filtered():
 
 
 def test_kabsch_planar_equals_svd_on_planar_data():
-    from lidar_slam_tpu.ops.kabsch import kabsch_planar
+    from lidar_slam.ops.kabsch import kabsch_planar
     rng = np.random.default_rng(11)
     A2 = rng.normal(size=(120, 2))
     R2 = _rot(0.4)[:2, :2]
@@ -290,7 +290,7 @@ def test_nearest_neighbor_dists_matches_reference_semantics():
     """nearest_neighbor_dists returns the argmin indices plus the TRUE
     squared distances of the chosen pairs (reference get_correspondences
     returns indices whose distances feed the error, modules/icp.py:29-41)."""
-    from lidar_slam_tpu.ops.nn import nearest_neighbor_dists, nearest_neighbors
+    from lidar_slam.ops.nn import nearest_neighbor_dists, nearest_neighbors
 
     rng = np.random.default_rng(9)
     src = jnp.asarray(rng.normal(size=(2, 40, 3)), jnp.float32)
@@ -376,7 +376,7 @@ def _scanlike_cloud(rng, n=240):
 
 
 def test_scan_normals_planar():
-    from lidar_slam_tpu.ops.kabsch import scan_normals_planar
+    from lidar_slam.ops.kabsch import scan_normals_planar
     rng = np.random.default_rng(20)
     pts = _scanlike_cloud(rng)
     m = jnp.ones(pts.shape[0], bool)
@@ -421,10 +421,10 @@ def test_plicp_recovers_transform_exactly():
 def test_plicp_cycle_stop_bounded_iterations():
     """The 2-cycle stopping rule bounds PLICP iteration counts (limit
     cycles oscillate with |delta err| > stopping_thresh forever)."""
-    from lidar_slam_tpu.config import IcpConfig, LidarConfig
-    from lidar_slam_tpu.models import odometry, scan_matching
-    from lidar_slam_tpu.ops import scan as scan_ops
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.config import IcpConfig, LidarConfig
+    from lidar_slam.models import odometry, scan_matching
+    from lidar_slam.ops import scan as scan_ops
+    from lidar_slam.utils import io
 
     d = io.synthetic_dataset(n_steps=40, n_rays=271, seed=3)
     points, masks = scan_ops.scans_to_points(

@@ -24,11 +24,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import IcpConfig, LidarConfig, SlamConfig
-from lidar_slam_tpu.models import odometry, scan_matching, slam
-from lidar_slam_tpu.ops import icp as icp_ops
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import IcpConfig, LidarConfig, SlamConfig
+from lidar_slam.models import odometry, scan_matching, slam
+from lidar_slam.ops import icp as icp_ops
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.utils import io
 
 
 N_STEPS = 360
@@ -200,7 +200,7 @@ def test_opposite_heading_revisit_closures():
     and cross-lap consistency (gauge-free map-ghosting metric) improves
     >= 2.5x over fixed-interval-only optimization, which cannot move it.
     (Full-scale numbers: 133 -> 32 cm, fixed-only 130 cm.)"""
-    from lidar_slam_tpu.utils import se2
+    from lidar_slam.utils import se2
 
     d = io.synthetic_reverse_lap_dataset(n_lap=240, n_rays=361, radius=2.0)
     gt = d["ground_truth"]
@@ -253,7 +253,7 @@ def test_online_refine_descriptor_closures(scene):
     then refine() with loop_proposer='descriptor' — the in-window place
     recognition finds the revisit and the refined window beats the drifted
     online track by >= 2x (same engine as the offline path)."""
-    from lidar_slam_tpu.models import online
+    from lidar_slam.models import online
 
     cfg = scene["cfg"]
     counts = jnp.asarray(scene["counts"], jnp.float32)

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from lidar_slam_tpu.utils import metrics
+from lidar_slam.utils import metrics
 
 
 def test_ate_zero_for_identical():
@@ -49,7 +49,7 @@ def test_map_agreement():
 
 
 def test_plot_trajectories_writes_files(tmp_path):
-    from lidar_slam_tpu.utils import plotting
+    from lidar_slam.utils import plotting
     rng = np.random.default_rng(4)
     poses = [np.cumsum(rng.normal(0, 0.1, (40, 3)), axis=0) for _ in range(2)]
     out = tmp_path / "sub" / "traj.png"
@@ -58,7 +58,7 @@ def test_plot_trajectories_writes_files(tmp_path):
     # dependency-free raster fallback path
     out2 = tmp_path / "raster.png"
     plotting._raster_trajectories(poses, str(out2))
-    from lidar_slam_tpu.utils.png import _read_png_python
+    from lidar_slam.utils.png import _read_png_python
     img = _read_png_python(str(out2))
     assert img.shape == (800, 800, 3)
     assert (img < 250).any()  # something was drawn

@@ -17,12 +17,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import SlamConfig
-from lidar_slam_tpu.models import occupancy
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.parallel import mesh as mesh_lib
-from lidar_slam_tpu.parallel import sharding
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import SlamConfig
+from lidar_slam.models import occupancy
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.parallel import mesh as mesh_lib
+from lidar_slam.parallel import sharding
+from lidar_slam.utils import io
 
 pytestmark = [
     pytest.mark.slow,

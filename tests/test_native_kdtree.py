@@ -5,14 +5,14 @@ The reference's native layer is all third-party bindings (SURVEY.md section
 2): scipy.spatial.KDTree for correspondences (modules/icp.py:40,161) and
 sklearn DBSCAN for scan filtering (modules/localization.py:216-217). The
 framework's native layer is first-party C++; these tests pin (a) the KDTree
-against a float64 brute-force argmin and the production TPU NN path, and
+against a float64 brute-force argmin and the production device NN path, and
 (b) the DBSCAN against sklearn and the on-device density filter.
 """
 
 import numpy as np
 import pytest
 
-from lidar_slam_tpu.utils import native
+from lidar_slam.utils import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built")
@@ -102,7 +102,7 @@ def test_device_filter_conforms_to_native_dbscan():
     picks the minimum core label, BFS picks first-visited)."""
     import jax.numpy as jnp
 
-    from lidar_slam_tpu.ops import filters
+    from lidar_slam.ops import filters
 
     rng = np.random.default_rng(9)
     for trial in range(4):
@@ -134,7 +134,7 @@ def test_device_nn_conforms_to_native_kdtree():
     scan-shaped clouds, including masked targets."""
     import jax.numpy as jnp
 
-    from lidar_slam_tpu.ops.nn import nearest_neighbors
+    from lidar_slam.ops.nn import nearest_neighbors
 
     rng = np.random.default_rng(11)
     src = rng.uniform(-10, 10, size=(1081, 2)).astype(np.float32)
@@ -194,7 +194,7 @@ def test_decoders_agree_on_reference_committed_pngs():
     import glob
     import os
 
-    from lidar_slam_tpu.utils.png import read_png
+    from lidar_slam.utils.png import read_png
 
     paths = sorted(glob.glob("/root/reference/images/*.png"))
     if not paths:

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.config import MapConfig
-from lidar_slam_tpu.models import occupancy
+from lidar_slam.config import MapConfig
+from lidar_slam.models import occupancy
 from tests.test_bresenham import _np_bresenham
 
 LOG4 = np.log(4.0)
@@ -168,6 +168,6 @@ def test_ogm_class_wrapper(tmp_path):
     assert ogm.grid_map.dtype == np.uint8
     ogm.plot_log_odds_map(str(tmp_path / "lo.png"))
     ogm.plot_map(str(tmp_path / "map.png"))
-    from lidar_slam_tpu.utils.png import read_png
+    from lidar_slam.utils.png import read_png
     img = read_png(str(tmp_path / "lo.png"))
     assert img.shape == (ogm.grid_map_width, ogm.grid_map_height)

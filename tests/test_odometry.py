@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.models import odometry
-from lidar_slam_tpu.utils import io
+from lidar_slam.models import odometry
+from lidar_slam.utils import io
 
 
 def _np_motion_model(pose, v, w, dt):

@@ -10,10 +10,10 @@ must equal build_logodds over the same (causal) trajectory.
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.config import SlamConfig
-from lidar_slam_tpu.models import occupancy, odometry, online, scan_matching
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import SlamConfig
+from lidar_slam.models import occupancy, odometry, online, scan_matching
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.utils import io
 
 CFG = SlamConfig()
 N, R, K = 30, 120, 200
@@ -60,7 +60,7 @@ def test_online_causal_map_matches_batch_over_same_track():
     # batch rasterizer over that same trajectory must agree
     track = st.poses_hist[:N]
     want = occupancy.build_logodds(track, points[..., :2], masks, CFG.map,
-                                   K, backend="scatter")
+                                   K)
     np.testing.assert_allclose(np.asarray(st.logodds), np.asarray(want),
                                atol=1e-4)
     assert (np.asarray(st.logodds) != 0).sum() > 200
@@ -253,7 +253,7 @@ def test_online_kidnapped_robot_recovers():
     separates true (err ~3e-6) from alias (~1e-3) by 2.5 orders."""
     import dataclasses
 
-    from lidar_slam_tpu.config import MapConfig, OnlineConfig
+    from lidar_slam.config import MapConfig, OnlineConfig
 
     n, t_kidnap = 400, 300
     counts, gyro, ranges, gt2 = _kidnap_log(n=n, t_kidnap=t_kidnap)

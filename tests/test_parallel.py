@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import MapConfig
-from lidar_slam_tpu.models import occupancy
-from lidar_slam_tpu.ops.icp import run_icp_batch
-from lidar_slam_tpu.parallel import mesh as mesh_lib
-from lidar_slam_tpu.parallel import sharding
+from lidar_slam.config import MapConfig
+from lidar_slam.models import occupancy
+from lidar_slam.ops.icp import run_icp_batch
+from lidar_slam.parallel import mesh as mesh_lib
+from lidar_slam.parallel import sharding
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -67,10 +67,10 @@ def test_sharded_map_matches_single_device():
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
 
 
-def test_sharded_map_raywalk_backend_matches_single_device():
-    """The multi-chip map path dispatched to the PRODUCTION ray-walk engine
-    (the backend the single-chip TPU pipeline ships) must agree with the
-    unsharded scatter build — psum-of-deltas exactness per scan."""
+def test_sharded_map_matches_dense_single_device():
+    """The ray-sharded build (compacted scatter per ray shard, psum of the
+    deltas) equals the single-device DENSE scatter: psum-of-deltas
+    exactness per scan, across both engines."""
     cfg = MapConfig(resolution=0.1, world_max_x=8, world_min_x=-8,
                     world_max_y=8, world_min_y=-8)
     rng = np.random.default_rng(5)
@@ -84,18 +84,18 @@ def test_sharded_map_raywalk_backend_matches_single_device():
     masks = jnp.asarray(rng.random((N, R)) > 0.05)
     K = occupancy.max_ray_cells(cfg, 6.0)
 
-    ref = occupancy.build_logodds(poses, pts, masks, cfg, K,
-                                  backend="scatter")
+    ref = occupancy.build_logodds(poses, pts, masks, cfg, K, compact=False)
 
     m = mesh_lib.make_mesh(8)
-    build = sharding.sharded_build_logodds(m, cfg, K, backend="raywalk")
+    build = sharding.sharded_build_logodds(m, cfg, K)
     got = build(poses, pts, masks)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
+    assert int((np.asarray(ref) != 0).sum()) > 100
 
 
-def test_sharded_map_raywalk_dispatch_on_two_axes():
-    """raywalk backend on a named 'rp' axis of a 2-D mesh (the dryrun's
-    mesh shape)."""
+def test_sharded_map_on_two_axis_mesh():
+    """Rays sharded over the named 'rp' axis of a 2-D (dp=4, rp=2) mesh
+    (the superstep's mesh shape) match the single-device build."""
     cfg = MapConfig(resolution=0.2, world_max_x=6, world_min_x=-6,
                     world_max_y=6, world_min_y=-6)
     rng = np.random.default_rng(6)
@@ -109,13 +109,14 @@ def test_sharded_map_raywalk_dispatch_on_two_axes():
     masks = jnp.asarray(rng.random((N, R)) > 0.05)
     K = occupancy.max_ray_cells(cfg, 6.0)
 
-    ref = occupancy.build_logodds(poses, pts, masks, cfg, K,
-                                  backend="scatter")
+    ref = occupancy.build_logodds(poses, pts, masks, cfg, K)
     m = mesh_lib.make_mesh(8, axes=("dp", "rp"))  # rp size 2
-    build = sharding.sharded_build_logodds(m, cfg, K, axis="rp",
-                                           backend="raywalk")
+    build = sharding.sharded_build_logodds(m, cfg, K, axis="rp")
     got = build(poses, pts, masks)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
+    np.testing.assert_array_equal(
+        np.asarray(occupancy.finalize_grid(got)),
+        np.asarray(occupancy.finalize_grid(ref)))
 
 
 def test_pad_batch():
@@ -130,8 +131,8 @@ def test_sharded_texture_paint_matches_sequential():
     """Frame-sharded texture painting equals the sequential paint_cells
     loop bit-for-bit: unique global sequence numbers make the scatter-max
     winner (and so last-writer-wins color) mesh-invariant."""
-    from lidar_slam_tpu.config import CameraConfig
-    from lidar_slam_tpu.models import texture
+    from lidar_slam.config import CameraConfig
+    from lidar_slam.models import texture
 
     cfg = MapConfig(resolution=0.2, world_max_x=6, world_min_x=-6,
                     world_max_y=6, world_min_y=-6)
@@ -182,8 +183,8 @@ def test_sharded_texture_paint_matches_sequential():
 def test_sharded_texture_paint_on_two_axis_mesh():
     """The frame shard rides 'dp' of a (dp=4, rp=2) mesh (the dryrun's
     production mesh shape): results must equal the 1-axis 8-way mesh."""
-    from lidar_slam_tpu.config import CameraConfig
-    from lidar_slam_tpu.models import texture
+    from lidar_slam.config import CameraConfig
+    from lidar_slam.models import texture
 
     cfg = MapConfig(resolution=0.2, world_max_x=6, world_min_x=-6,
                     world_max_y=6, world_min_y=-6)
@@ -280,9 +281,9 @@ def test_scan_sharded_map_saturating_cells():
         np.asarray(occupancy.finalize_grid(ref)))
 
 
-def test_scan_sharded_map_raywalk_backend():
-    """Scan-parallel build dispatched to the PRODUCTION ray-walk engine
-    (interpret mode off-TPU) vs the unsharded scatter build."""
+def test_scan_sharded_map_matches_dense_single_device():
+    """Scan-parallel build (compacted scatter per scan, clamp-affine
+    composition across blocks) vs the unsharded DENSE scatter build."""
     cfg = MapConfig(resolution=0.2, world_max_x=6, world_min_x=-6,
                     world_max_y=6, world_min_y=-6)
     rng = np.random.default_rng(9)
@@ -296,11 +297,9 @@ def test_scan_sharded_map_raywalk_backend():
     masks = jnp.asarray(rng.random((N, R)) > 0.05)
     K = occupancy.max_ray_cells(cfg, 6.0)
 
-    ref = occupancy.build_logodds(poses, pts, masks, cfg, K,
-                                  backend="scatter")
+    ref = occupancy.build_logodds(poses, pts, masks, cfg, K, compact=False)
     m = mesh_lib.make_mesh(8)
-    build = sharding.sharded_build_logodds_scans(m, cfg, K,
-                                                 backend="raywalk")
+    build = sharding.sharded_build_logodds_scans(m, cfg, K)
     got = build(poses, pts, masks)
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-5)
 
@@ -343,10 +342,10 @@ def test_sharded_pf_score_bitwise_and_filter_equality():
     track then agrees to float tolerance — the replicated downstream math
     is the same ops but a different executable (GSPMD), so fusion may
     differ by ULPs (measured max 7e-8 over 48 steps)."""
-    from lidar_slam_tpu.config import LidarConfig
-    from lidar_slam_tpu.models import particle_filter as pf
-    from lidar_slam_tpu.ops import scan as scan_ops
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.config import LidarConfig
+    from lidar_slam.models import particle_filter as pf
+    from lidar_slam.ops import scan as scan_ops
+    from lidar_slam.utils import io
 
     cfg_map = MapConfig(resolution=0.1, world_max_x=15, world_min_x=-15,
                         world_max_y=15, world_min_y=-15)
@@ -392,11 +391,11 @@ def test_sharded_pf_score_in_pf_slam():
     track matches the single-device run (tolerance as in the test above;
     the map may differ only where a ULP-level pose diff crosses a
     world2grid cell boundary — bounded to a trace fraction of cells)."""
-    from lidar_slam_tpu.config import LidarConfig
-    from lidar_slam_tpu.models import pf_slam
-    from lidar_slam_tpu.models.particle_filter import PFConfig
-    from lidar_slam_tpu.ops import scan as scan_ops
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.config import LidarConfig
+    from lidar_slam.models import pf_slam
+    from lidar_slam.models.particle_filter import PFConfig
+    from lidar_slam.ops import scan as scan_ops
+    from lidar_slam.utils import io
 
     cfg_map = MapConfig(resolution=0.1, world_max_x=15, world_min_x=-15,
                         world_max_y=15, world_min_y=-15)
@@ -427,7 +426,7 @@ def test_sharded_pf_score_in_pf_slam():
 def test_sharded_reloc_score_bitwise_search_equality():
     """Node-sharded relocalization scoring: the full certified search
     (pose, score, certificate, margin) is bit-identical to single-device."""
-    from lidar_slam_tpu.models import relocalization as rl
+    from lidar_slam.models import relocalization as rl
 
     rng = np.random.default_rng(5)
     mcfg = MapConfig(world_max_x=3.2, world_min_x=-3.2,
@@ -453,9 +452,9 @@ def test_sharded_paint_ops_matches_sequential():
     """The op-stream shard of the paint-op engine (native host projector)
     equals the sequential paint bit-for-bit, including across batches and
     with padding ops."""
-    from lidar_slam_tpu.config import CameraConfig
-    from lidar_slam_tpu.models import texture
-    from lidar_slam_tpu.utils import native
+    from lidar_slam.config import CameraConfig
+    from lidar_slam.models import texture
+    from lidar_slam.utils import native
 
     if not native.available():
         import pytest
@@ -494,7 +493,7 @@ def test_sharded_paint_ops_matches_sequential():
 
 def _pg_problem(rng, n, interval=10, noise=0.05):
     """Fixed-interval pose-graph problem: noisy circle + exact loop arcs."""
-    from lidar_slam_tpu.utils import se2
+    from lidar_slam.utils import se2
 
     t = np.linspace(0, 2 * np.pi, n)
     gt = np.stack([np.cos(t) * 5, np.sin(t) * 5, t + np.pi / 2],
@@ -519,7 +518,7 @@ def test_sharded_pose_graph_matches_single_device():
     """Factor-sharded LM == single-device banded LM up to psum
     reassociation: poses ~1e-5, cost ~1e-6 relative. n = 53 exercises
     BOTH pad paths (52 between factors -> 56; 5 loop arcs -> 8)."""
-    from lidar_slam_tpu.models import pose_graph as pg
+    from lidar_slam.models import pose_graph as pg
 
     rng = np.random.default_rng(3)
     poses0, rel, (li, lj, lmeas, lmask) = _pg_problem(rng, 53)
@@ -541,8 +540,8 @@ def test_sharded_pose_graph_trajectory_wrapper_and_robust():
     """The fused sharded wrapper (graph assembly + LM in one jit) matches
     the single-device fused path, with a robust loop kernel enabled and a
     deliberately corrupted (gated-IN) loop measurement."""
-    from lidar_slam_tpu.config import PoseGraphConfig
-    from lidar_slam_tpu.models import pose_graph as pg
+    from lidar_slam.config import PoseGraphConfig
+    from lidar_slam.models import pose_graph as pg
 
     rng = np.random.default_rng(5)
     poses0, rel, (li, lj, lmeas, lmask) = _pg_problem(rng, 64)
@@ -576,7 +575,7 @@ def test_sharded_pose_graph_rejects_wide_arcs():
     points must guard: optimize_sharded eagerly, and the jitted wrapper
     host-side BEFORE tracing (inside the jit the indices are tracers and
     the inner guard is skipped)."""
-    from lidar_slam_tpu.models import pose_graph as pg
+    from lidar_slam.models import pose_graph as pg
 
     rng = np.random.default_rng(7)
     poses0, rel, (li, lj, lmeas, lmask) = _pg_problem(rng, 53)
@@ -589,7 +588,7 @@ def test_sharded_pose_graph_rejects_wide_arcs():
 
     # the production wrapper path (everything inside its jit is a tracer,
     # so the guard must run on concrete values before the jitted call)
-    from lidar_slam_tpu.config import PoseGraphConfig
+    from lidar_slam.config import PoseGraphConfig
     run = sharding.sharded_optimize_trajectory(
         m, PoseGraphConfig(solver="banded", fixed_interval=10))
     with pytest.raises(ValueError, match="banded-only"):
@@ -604,7 +603,7 @@ def test_sharded_pose_graph_no_loops_and_f64():
     """The Lf=0 padding branch (no loop factors -> one all-masked pad
     shard per device) and dtype generality: a chain-only f32 graph and
     the same graph in f64 both match the single-device banded solver."""
-    from lidar_slam_tpu.models import pose_graph as pg
+    from lidar_slam.models import pose_graph as pg
 
     rng = np.random.default_rng(11)
     poses0, rel, _ = _pg_problem(rng, 41)

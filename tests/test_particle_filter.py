@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import LidarConfig, MapConfig
-from lidar_slam_tpu.models import occupancy, odometry
-from lidar_slam_tpu.models import particle_filter as pf
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import LidarConfig, MapConfig
+from lidar_slam.models import occupancy, odometry
+from lidar_slam.models import particle_filter as pf
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.utils import io
 
 
 @pytest.fixture(scope="module")
@@ -190,7 +190,7 @@ def test_degenerate_inputs_no_nans(world):
 def test_systematic_resample_properties():
     """Systematic resampling: counts proportional to weights (each particle
     drawn floor(P*w) or ceil(P*w) times), deterministic in u."""
-    from lidar_slam_tpu.models.particle_filter import _systematic_resample
+    from lidar_slam.models.particle_filter import _systematic_resample
 
     particles = jnp.arange(8, dtype=jnp.float32)[:, None] * jnp.ones((1, 3))
     w = jnp.asarray([0.4, 0.2, 0.1, 0.1, 0.1, 0.05, 0.03, 0.02])

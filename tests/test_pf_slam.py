@@ -13,11 +13,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import LidarConfig, MapConfig
-from lidar_slam_tpu.models import occupancy, odometry, pf_slam
-from lidar_slam_tpu.models.particle_filter import PFConfig
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import LidarConfig, MapConfig
+from lidar_slam.models import occupancy, odometry, pf_slam
+from lidar_slam.models.particle_filter import PFConfig
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.utils import io
 
 
 @pytest.fixture(scope="module")

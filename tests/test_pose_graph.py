@@ -2,9 +2,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import PoseGraphConfig
-from lidar_slam_tpu.models import pose_graph
-from lidar_slam_tpu.utils import se2
+from lidar_slam.config import PoseGraphConfig
+from lidar_slam.models import pose_graph
+from lidar_slam.utils import se2
 
 
 def _np_T(pose):
@@ -256,8 +256,8 @@ def test_run_slam_fixed_interval_syncs_banded_band():
     """run_slam(fixed_interval=K) must solve with band=K even though the
     config default is 10 — a mismatch silently drops loop Hessian blocks
     spanning more than `band` poses (round-2 review)."""
-    from lidar_slam_tpu.models import slam
-    from lidar_slam_tpu.utils import io as io_utils
+    from lidar_slam.models import slam
+    from lidar_slam.utils import io as io_utils
 
     data = io_utils.synthetic_dataset(n_steps=90, n_rays=180, seed=9)
     kw = dict(counts=data["encoder"]["counts"],
@@ -268,7 +268,7 @@ def test_run_slam_fixed_interval_syncs_banded_band():
     res20 = slam.run_slam(fixed_interval=20, **kw)
     # reference for span-20 loops: the any-topology direct solver
     import dataclasses
-    from lidar_slam_tpu.config import SlamConfig, PoseGraphConfig
+    from lidar_slam.config import SlamConfig, PoseGraphConfig
     cfg_direct = dataclasses.replace(
         SlamConfig(), pose_graph=PoseGraphConfig(solver="direct"))
     res20_direct = slam.run_slam(fixed_interval=20, cfg=cfg_direct, **kw)

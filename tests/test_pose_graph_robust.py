@@ -12,9 +12,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import PoseGraphConfig
-from lidar_slam_tpu.models import pose_graph as pg
-from lidar_slam_tpu.utils import se2
+from lidar_slam.config import PoseGraphConfig
+from lidar_slam.models import pose_graph as pg
+from lidar_slam.utils import se2
 
 
 @pytest.fixture(scope="module")

@@ -1,4 +1,4 @@
-"""Pose-graph optimum verification at dataset-20 scale (VERDICT round-1 #5).
+"""Pose-graph optimum verification at dataset-20 scale.
 
 GTSAM is not installed, so the stand-in independent solver is scipy
 least_squares (trf) over the same residuals in f64. On this
@@ -26,9 +26,9 @@ import jax.numpy as jnp
 import scipy.sparse as sp
 from scipy.optimize import least_squares
 
-from lidar_slam_tpu.config import PoseGraphConfig
-from lidar_slam_tpu.models import pose_graph as pg
-from lidar_slam_tpu.utils import se2
+from lidar_slam.config import PoseGraphConfig
+from lidar_slam.models import pose_graph as pg
+from lidar_slam.utils import se2
 
 
 def _make_problem(seed, n, interval=10):

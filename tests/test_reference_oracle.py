@@ -1,5 +1,5 @@
 """Oracle tests: run the ACTUAL reference implementation (read-only import
-from /root/reference) on identical inputs and assert our TPU-native ops
+from /root/reference) on identical inputs and assert our JAX ops
 reproduce it. Strongest possible parity evidence — no hand-written spec
 model in between. Skipped wholesale when the reference tree is absent.
 
@@ -35,7 +35,7 @@ def ref():
 
 
 def test_odometry_matches_reference(ref):
-    from lidar_slam_tpu.models import odometry
+    from lidar_slam.models import odometry
 
     rng = np.random.default_rng(0)
     n = 150
@@ -53,8 +53,8 @@ def test_odometry_matches_reference(ref):
 
 
 def test_lidar_preprocessing_matches_reference(ref):
-    from lidar_slam_tpu.config import LidarConfig
-    from lidar_slam_tpu.ops import scan as scan_ops
+    from lidar_slam.config import LidarConfig
+    from lidar_slam.ops import scan as scan_ops
 
     rng = np.random.default_rng(1)
     ranges = rng.uniform(0.0, 35.0, (6, 1081))
@@ -68,7 +68,7 @@ def test_lidar_preprocessing_matches_reference(ref):
 
 
 def test_run_icp_matches_reference(ref):
-    from lidar_slam_tpu.ops import icp as icp_ops
+    from lidar_slam.ops import icp as icp_ops
 
     rng = np.random.default_rng(2)
     src = rng.normal(size=(180, 3)) * [1, 1, 0.3]
@@ -90,8 +90,8 @@ def test_run_icp_matches_reference(ref):
 
 
 def test_scan_matching_matches_reference(ref):
-    from lidar_slam_tpu.config import IcpConfig
-    from lidar_slam_tpu.models import scan_matching
+    from lidar_slam.config import IcpConfig
+    from lidar_slam.models import scan_matching
 
     rng = np.random.default_rng(3)
     n, P = 6, 100
@@ -116,8 +116,8 @@ def test_scan_matching_matches_reference(ref):
 
 
 def test_ogm_matches_reference(ref):
-    from lidar_slam_tpu.config import MapConfig
-    from lidar_slam_tpu.models import occupancy
+    from lidar_slam.config import MapConfig
+    from lidar_slam.models import occupancy
 
     rng = np.random.default_rng(4)
     n_scans, n_rays = 4, 80
@@ -145,7 +145,7 @@ def test_ogm_matches_reference(ref):
 
 
 def test_bresenham_matches_reference(ref):
-    from lidar_slam_tpu.ops.bresenham import bresenham_cells
+    from lidar_slam.ops.bresenham import bresenham_cells
 
     rogm = ref["ogm"].OccupancyGridMap(1.0, 5, 5, -5, -5)
     rng = np.random.default_rng(5)
@@ -157,7 +157,7 @@ def test_bresenham_matches_reference(ref):
 
 
 def test_filters_match_reference(ref):
-    from lidar_slam_tpu.ops import filters
+    from lidar_slam.ops import filters
 
     rng = np.random.default_rng(6)
     scans = []
@@ -180,7 +180,7 @@ def test_filters_match_reference(ref):
 
 
 def test_pose_algebra_matches_reference(ref):
-    from lidar_slam_tpu.utils import se2
+    from lidar_slam.utils import se2
 
     rng = np.random.default_rng(7)
     for _ in range(10):
@@ -204,7 +204,7 @@ def test_map_correlation_matches_reference():
     matplotlib.use("Agg")  # pr2_utils calls plt.ion() at import
     pr2 = importlib.import_module("pr2_utils")
 
-    from lidar_slam_tpu.ops import correlation
+    from lidar_slam.ops import correlation
 
     rng = np.random.default_rng(8)
     im = (rng.random((81, 81)) > 0.6).astype(np.int8)
@@ -220,7 +220,7 @@ def test_map_correlation_matches_reference():
 
 
 def test_voxel_downsample_matches_reference(ref):
-    from lidar_slam_tpu.ops.voxel import voxel_downsample
+    from lidar_slam.ops.voxel import voxel_downsample
 
     rng = np.random.default_rng(9)
     pc = rng.normal(0, 1.0, (400, 3))
@@ -230,7 +230,7 @@ def test_voxel_downsample_matches_reference(ref):
 
 
 def test_sensor_sync_matches_reference(ref):
-    from lidar_slam_tpu import sensors as our_sensors
+    from lidar_slam import sensors as our_sensors
 
     sys.path.insert(0, REF)
     from modules import sensors as ref_sensors
@@ -277,9 +277,9 @@ def test_texture_chain_matches_reference(tmp_path, monkeypatch, ref):
     import modules.texture_mapping as rtex
     from modules import sensors as ref_sensors
 
-    from lidar_slam_tpu.config import CameraConfig, MapConfig
-    from lidar_slam_tpu.models import texture
-    from lidar_slam_tpu.utils.png import write_png
+    from lidar_slam.config import CameraConfig, MapConfig
+    from lidar_slam.models import texture
+    from lidar_slam.utils.png import write_png
 
     rng = np.random.default_rng(11)
     H, W = 32, 40

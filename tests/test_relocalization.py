@@ -12,10 +12,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from lidar_slam_tpu.config import LidarConfig, MapConfig
-from lidar_slam_tpu.models import occupancy, relocalization as rl
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.utils import io as uio
+from lidar_slam.config import LidarConfig, MapConfig
+from lidar_slam.models import occupancy, relocalization as rl
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.utils import io as uio
 
 
 def test_max_pyramid_matches_bruteforce():
@@ -40,7 +40,7 @@ def world():
     mcfg = MapConfig(world_max_x=16.0, world_min_x=-16.0,
                      world_max_y=16.0, world_min_y=-16.0, resolution=0.1)
     K = occupancy.max_ray_cells(mcfg, 30.0)
-    lo = occupancy.build_logodds(gt, pts, mask, mcfg, K, backend="scatter")
+    lo = occupancy.build_logodds(gt, pts, mask, mcfg, K)
     return np.asarray(ds["ground_truth"]), pts, mask, mcfg, lo
 
 

@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.config import IcpConfig, LidarConfig
-from lidar_slam_tpu.models import odometry, scan_matching
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.utils import io, se2
+from lidar_slam.config import IcpConfig, LidarConfig
+from lidar_slam.models import odometry, scan_matching
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.utils import io, se2
 from tests.test_icp import _np_icp
 
 
@@ -114,7 +114,7 @@ def test_phased_schedule_matches_chunked():
     """The phased-resort schedule is a pure re-scheduling: per-pair
     transforms, errors, and iteration counts must match the plain chunked
     schedule exactly (scan_matching.icp_all_pairs docstring contract)."""
-    from lidar_slam_tpu.ops import icp as icp_ops
+    from lidar_slam.ops import icp as icp_ops
 
     rng = np.random.default_rng(3)
     B, P = 21, 96  # deliberately NOT a multiple of the chunk size
@@ -151,10 +151,10 @@ def test_cumsum_partition_equals_argsort():
     must match exactly."""
     import numpy as np
 
-    from lidar_slam_tpu.config import IcpConfig, LidarConfig
-    from lidar_slam_tpu.models import scan_matching
-    from lidar_slam_tpu.ops import scan as scan_ops
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.config import IcpConfig, LidarConfig
+    from lidar_slam.models import scan_matching
+    from lidar_slam.ops import scan as scan_ops
+    from lidar_slam.utils import io
 
     data = io.synthetic_dataset(n_steps=90, n_rays=121, seed=11)
     points, masks = scan_ops.scans_to_points(
@@ -180,10 +180,10 @@ def test_point_to_line_metric_cuts_drift():
     2.20 -> 0.018 m at 360 steps)."""
     import numpy as np
 
-    from lidar_slam_tpu.config import IcpConfig, LidarConfig
-    from lidar_slam_tpu.models import odometry
-    from lidar_slam_tpu.ops import scan as scan_ops
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.config import IcpConfig, LidarConfig
+    from lidar_slam.models import odometry
+    from lidar_slam.ops import scan as scan_ops
+    from lidar_slam.utils import io
 
     d = io.synthetic_dataset(n_steps=120, n_rays=271, seed=3)
     gt = d["ground_truth"]

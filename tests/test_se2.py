@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu.utils import se2
+from lidar_slam.utils import se2
 
 
 def _np_T_from_pose(pose):

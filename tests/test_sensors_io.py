@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_slam_tpu import sensors
-from lidar_slam_tpu.config import LidarConfig
-from lidar_slam_tpu.ops import scan as scan_ops
-from lidar_slam_tpu.utils import io
+from lidar_slam import sensors
+from lidar_slam.config import LidarConfig
+from lidar_slam.ops import scan as scan_ops
+from lidar_slam.utils import io
 
 
 def _np_find_nearest(array, value):

@@ -2,10 +2,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lidar_slam_tpu.config import (IcpConfig, LidarConfig, MapConfig,
-                                   PoseGraphConfig, SlamConfig)
-from lidar_slam_tpu.models import slam
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import (IcpConfig, LidarConfig, MapConfig,
+                               PoseGraphConfig, SlamConfig)
+from lidar_slam.models import slam
+from lidar_slam.utils import io
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +78,7 @@ def test_mode_gtsam_with_filters(small_dataset):
 def test_loop_closure_gating_semantics():
     """The reference gates on the SIGNED angle (not abs), and strict <
     (reference: main.py:163-172)."""
-    from lidar_slam_tpu.models.slam import compute_loop_closures
+    from lidar_slam.models.slam import compute_loop_closures
     rng = np.random.default_rng(0)
     # identical scans at every step: closure transform ~ identity, accepted
     base = rng.uniform(-3, 3, (60, 2))

@@ -13,10 +13,10 @@ def test_superstep_on_cpu_mesh():
     the virtual 8-device mesh (the same path dryrun_multichip exercises)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from lidar_slam_tpu.config import IcpConfig, MapConfig, PoseGraphConfig
-    from lidar_slam_tpu.models.occupancy import max_ray_cells
-    from lidar_slam_tpu.parallel.mesh import make_mesh
-    from lidar_slam_tpu.parallel.superstep import make_slam_step
+    from lidar_slam.config import IcpConfig, MapConfig, PoseGraphConfig
+    from lidar_slam.models.occupancy import max_ray_cells
+    from lidar_slam.parallel.mesh import make_mesh
+    from lidar_slam.parallel.superstep import make_slam_step
 
     mesh = make_mesh(8, axes=("dp", "rp"))
     map_cfg = MapConfig(resolution=0.2, world_max_x=6, world_min_x=-6,
@@ -42,17 +42,15 @@ def test_superstep_on_cpu_mesh():
     assert float(jnp.abs(out.logodds).sum()) > 0
 
 
-def test_superstep_map_backends_agree():
-    """The multi-device step's map must be identical whichever per-scan
-    engine it dispatches to (the production TPU raywalk kernel vs the
-    scatter path) — the dryrun then genuinely validates the shipped
-    engine's sharding."""
+def test_superstep_map_matches_single_device_build():
+    """The step's ray-sharded map (psum of per-shard scatter deltas on the
+    'rp' axis) equals the single-device build at the step's own poses."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from lidar_slam_tpu.config import IcpConfig, MapConfig, PoseGraphConfig
-    from lidar_slam_tpu.models.occupancy import max_ray_cells
-    from lidar_slam_tpu.parallel.mesh import make_mesh
-    from lidar_slam_tpu.parallel.superstep import make_slam_step
+    from lidar_slam.config import IcpConfig, MapConfig, PoseGraphConfig
+    from lidar_slam.models.occupancy import build_logodds, max_ray_cells
+    from lidar_slam.parallel.mesh import make_mesh
+    from lidar_slam.parallel.superstep import make_slam_step
 
     mesh = make_mesh(8, axes=("dp", "rp"))
     map_cfg = MapConfig(resolution=0.2, world_max_x=6, world_min_x=-6,
@@ -71,20 +69,17 @@ def test_superstep_map_backends_agree():
                        jnp.float32)
     logodds = jnp.zeros((map_cfg.width, map_cfg.height), jnp.float32)
 
-    out_s = make_slam_step(mesh, map_cfg, K, IcpConfig(), pg,
-                           map_backend="scatter")(points, masks, odom,
-                                                  logodds)
-    out_r = make_slam_step(mesh, map_cfg, K, IcpConfig(), pg,
-                           map_backend="raywalk")(points, masks, odom,
-                                                  logodds)
-    np.testing.assert_allclose(np.asarray(out_s.poses),
-                               np.asarray(out_r.poses), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(out_s.logodds),
-                               np.asarray(out_r.logodds), atol=1e-5)
+    out = make_slam_step(mesh, map_cfg, K, IcpConfig(), pg)(
+        points, masks, odom, logodds)
+    ref = build_logodds(out.poses, points[..., :2], masks, map_cfg, K,
+                        init=logodds)
+    np.testing.assert_allclose(np.asarray(out.logodds), np.asarray(ref),
+                               atol=1e-5)
+    assert float(jnp.abs(ref).sum()) > 0
 
 
 def test_transform_scans_to_world():
-    from lidar_slam_tpu.ops.scan import transform_scans_to_world
+    from lidar_slam.ops.scan import transform_scans_to_world
     rng = np.random.default_rng(1)
     poses = rng.normal(size=(4, 3))
     pts = rng.normal(size=(4, 10, 2))
@@ -100,7 +95,7 @@ def test_reference_golden_artifacts_are_loadable():
     """The committed dataset-20 artifacts are the accuracy goldens
     (SURVEY.md section 6); verify our persistence layer reads them and our
     pipeline types accept their shapes."""
-    from lidar_slam_tpu.utils import io, se2
+    from lidar_slam.utils import io, se2
 
     poses = io.load_numpy(os.path.join(REF_OUT, "poses_odom_20.npy"))
     assert poses.shape == (4956, 3)
@@ -115,7 +110,7 @@ def test_reference_golden_artifacts_are_loadable():
     np.testing.assert_allclose(recomposed[:, :2, 2], poses[1:, :2], atol=1e-6)
 
     # our pose-graph layer accepts the golden relative poses directly
-    from lidar_slam_tpu.models import pose_graph
+    from lidar_slam.models import pose_graph
     g = pose_graph.make_graph(jnp.asarray(rel[:100]))
     cost = float(pose_graph.graph_cost(jnp.asarray(poses[:101]), g))
     assert np.isfinite(cost)
@@ -128,13 +123,13 @@ def test_superstep_matches_unsharded_pipeline():
     tolerance and the thresholded uint8 maps exactly)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from lidar_slam_tpu.config import IcpConfig, MapConfig, PoseGraphConfig
-    from lidar_slam_tpu.models import occupancy, pose_graph
-    from lidar_slam_tpu.models.occupancy import max_ray_cells
-    from lidar_slam_tpu.ops.icp import run_icp_batch
-    from lidar_slam_tpu.parallel.mesh import make_mesh
-    from lidar_slam_tpu.parallel.superstep import make_slam_step
-    from lidar_slam_tpu.utils import se2
+    from lidar_slam.config import IcpConfig, MapConfig, PoseGraphConfig
+    from lidar_slam.models import occupancy, pose_graph
+    from lidar_slam.models.occupancy import max_ray_cells
+    from lidar_slam.ops.icp import run_icp_batch
+    from lidar_slam.parallel.mesh import make_mesh
+    from lidar_slam.parallel.superstep import make_slam_step
+    from lidar_slam.utils import se2
 
     mesh = make_mesh(8, axes=("dp", "rp"))
     map_cfg = MapConfig(resolution=0.2, world_max_x=6, world_min_x=-6,
@@ -172,8 +167,7 @@ def test_superstep_matches_unsharded_pipeline():
                               lambda_up=pg_cfg.lambda_up,
                               lambda_down=pg_cfg.lambda_down)
     grid = occupancy.build_logodds(opt.poses, points[..., :2], masks,
-                                   map_cfg, K, init=logodds,
-                                   backend="scatter")
+                                   map_cfg, K, init=logodds)
 
     np.testing.assert_allclose(np.asarray(out.poses), np.asarray(opt.poses),
                                atol=1e-6)

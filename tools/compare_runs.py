@@ -14,7 +14,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from lidar_slam_tpu.utils import metrics  # noqa: E402
+from lidar_slam.utils import metrics  # noqa: E402
 
 if __name__ == "__main__":
     p = argparse.ArgumentParser()

@@ -28,7 +28,7 @@ def main():
     sys.path.insert(0, REPO)
     sys.path.insert(0, REF)
     import modules.localization as rloc
-    from lidar_slam_tpu.utils import io
+    from lidar_slam.utils import io
 
     data = io.synthetic_dataset(n_steps=args.scans, n_rays=1081, seed=0)
     ranges = np.asarray(data["lidar"]["ranges"])

@@ -2,20 +2,20 @@
 
 Times sharded_build_logodds (ray-sharded, psum per scan) AND
 sharded_build_logodds_scans (scan-parallel, clamp-affine composition) on
-1/2/4/8 virtual CPU devices (VERDICT r1 #8: replace the modeled
-multi-chip numbers with measured-on-mesh data).
+1/2/4/8 virtual CPU devices.
 
 CAVEAT on interpretation: the virtual devices timeshare ONE physical CPU
 core, so wall-clock here measures the sharding overhead (collectives,
 partitioned program), not real-chip speedup. The quantities that transfer
 to real chips are reported per row: per-device work (scattered slots for
-the ray split; SCANS WALKED for the scan split — the walk's cost unit)
+the ray split; SCANS WALKED for the scan split — the scan's cost unit)
 and the collective budget (the ray split moves one full grid per scan
-over ICI; the scan split gathers 3 grids once).
+across devices; the scan split gathers 3 grids once).
 
     python tools/multichip_scaling.py [n_steps]
 """
 
+import os
 import sys
 import time
 
@@ -26,16 +26,15 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
 
 import jax.numpy as jnp  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lidar_slam_tpu.config import MapConfig  # noqa: E402
-from lidar_slam_tpu.models import occupancy  # noqa: E402
-from lidar_slam_tpu.parallel import mesh as mesh_lib  # noqa: E402
-from lidar_slam_tpu.parallel import sharding  # noqa: E402
+from lidar_slam.config import MapConfig  # noqa: E402
+from lidar_slam.models import occupancy  # noqa: E402
+from lidar_slam.parallel import mesh as mesh_lib  # noqa: E402
+from lidar_slam.parallel import sharding  # noqa: E402
 
 
 def log(m):
@@ -55,8 +54,9 @@ def main():
     poses = jnp.asarray(
         np.cumsum(rng.normal(0, 0.02, (n_steps, 3)), 0), jnp.float32)
     K = occupancy.adaptive_ray_cells(pts, masks, cfg, 30.0)
-    from lidar_slam_tpu.utils.profiling import devices_or_die
-    log(f"devices={len(devices_or_die())} steps={n_steps} rays={n_rays} K={K}")
+    from lidar_slam.utils.runtime import report_devices, use_compile_cache
+    use_compile_cache()
+    log(f"devices={len(report_devices())} steps={n_steps} rays={n_rays} K={K}")
 
     ref = None
     same = True
@@ -94,7 +94,7 @@ def main():
         dt = time.time() - t0
         log(f"n_dev={n_dev}: {dt:6.2f}s wall (virtual mesh, 1 core) | "
             f"per-device scans walked = {n_steps // n_dev} (of {n_steps}) | "
-            f"ICI: 1 gather of {3 * n_dev * grid_mb:.0f} MB total "
+            f"interconnect: 1 gather of {3 * n_dev * grid_mb:.0f} MB total "
             f"(ray split: {n_steps} psums = {n_steps * grid_mb:,.0f} MB)")
     log(f"scan-parallel maps match the ray-sharded reference "
         f"(atol 1e-4): {same}")
@@ -104,8 +104,8 @@ def main():
     # sharding OVERHEAD trend (one fused psum of ~(n_sup, 30, 30) x 2 +
     # (n, 3) per LM iteration), not speedup. The column that transfers is
     # per-device factors linearized.
-    from lidar_slam_tpu.models import pose_graph as pg
-    from lidar_slam_tpu.utils import se2
+    from lidar_slam.models import pose_graph as pg
+    from lidar_slam.utils import se2
 
     log("--- factor-sharded pose-graph LM ---")
     T_abs = se2.T_from_pose(poses)

@@ -20,10 +20,11 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 sys.path.insert(0, ".")
-from lidar_slam_tpu.config import (IcpConfig, LidarConfig, MapConfig,
-                                   PoseGraphConfig, SlamConfig)
-from lidar_slam_tpu.models import slam
-from lidar_slam_tpu.utils import io
+from lidar_slam.config import (IcpConfig, LidarConfig, MapConfig,
+                               PoseGraphConfig, SlamConfig)
+from lidar_slam.models import slam
+from lidar_slam.utils import io
+from lidar_slam.utils.runtime import use_compile_cache
 
 
 def revisit_scene(n_steps=360, n_rays=541, gyro_scale=0.97, seed=7, laps=1):
@@ -44,7 +45,7 @@ def main_reverse():
     import dataclasses
 
     import jax.numpy as jnp
-    from lidar_slam_tpu.utils import se2
+    from lidar_slam.utils import se2
 
     n_lap = int(sys.argv[2]) if len(sys.argv) > 2 else 360
     d = io.synthetic_reverse_lap_dataset(n_lap=n_lap)
@@ -125,9 +126,9 @@ def main():
 
     # error-separation diagnostics on the proximity proposals
     import jax.numpy as jnp
-    from lidar_slam_tpu.ops import icp as icp_ops
-    from lidar_slam_tpu.ops import scan as scan_ops
-    from lidar_slam_tpu.models import odometry, scan_matching
+    from lidar_slam.ops import icp as icp_ops
+    from lidar_slam.ops import scan as scan_ops
+    from lidar_slam.models import odometry, scan_matching
 
     points, masks = scan_ops.scans_to_points(
         jnp.asarray(ranges), 0.1, 30.0, cfg0.lidar)
@@ -162,4 +163,5 @@ def main():
 
 
 if __name__ == "__main__":
+    use_compile_cache()
     main()

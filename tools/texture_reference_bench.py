@@ -8,7 +8,7 @@ ms/frame plus the dataset-20 extrapolation (2,407 RGB frames — the
 length of the Kinect rgb stamp track the loader advertises,
 reference: modules/utils.py:95-100).
 
-No JAX involved: this is the 1-CPU-core baseline the repo's TPU texture
+No JAX involved: this is the 1-CPU-core baseline the repo's device texture
 path (models/texture.py, tools/texture_bench.py) is compared against.
 
 Usage: python tools/texture_reference_bench.py [--frames 24]
@@ -31,7 +31,7 @@ def fabricate_tree(root, n_frames, rng):
     """dataRGBD/{Disparity20,RGB20} PNG trees in the reference's naming
     (reference: modules/texture_mapping.py:54-62)."""
     sys.path.insert(0, REPO)
-    from lidar_slam_tpu.utils.png import write_png
+    from lidar_slam.utils.png import write_png
 
     ddir = os.path.join(root, "dataRGBD", "Disparity20")
     rdir = os.path.join(root, "dataRGBD", "RGB20")

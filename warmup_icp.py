@@ -5,7 +5,7 @@
 
 import argparse
 
-from lidar_slam_tpu.models import warmup
+from lidar_slam.models import warmup
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser()
@@ -28,8 +28,8 @@ if __name__ == "__main__":
                              "are not shipped)")
     args = parser.parse_args()
 
-    from lidar_slam_tpu.utils.profiling import devices_or_die
-    devices_or_die()
+    from lidar_slam.utils.runtime import report_devices
+    report_devices()
 
     if args.synthetic:
         source_pc = warmup.synthetic_model()
